@@ -1,15 +1,16 @@
 """Weak-scaling benchmark of the sharded north-star chain.
 
-North-star target (BASELINE.json): >= 90% weak-scaling efficiency at
-N >= 2 hosts.  This environment has ONE physical TPU chip, so by default
-this harness runs the mechanism (sharded program, state collective, halo)
-on an N-device virtual CPU mesh and reports per-device throughput ratios —
-a correctness/overhead check of the sharded program, NOT a hardware scaling
-claim.  On a real pod (run with JAX_PLATFORMS=tpu and one process per host
-after `parallel.multihost.initialize()`), the same script measures honest
-weak scaling over ICI/DCN.
+North-star target (BASELINE.json): >= 90% weak-scaling efficiency.  The
+chain runs sequence-parallel on 1, 2, 4, ... of the devices JAX sees, with
+constant work per device, and each line names the platform it ran on:
 
-Prints one JSON line per mesh size plus a summary efficiency line.
+    python bench_scaling.py                 # the GPUs of this host
+    JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \\
+        python bench_scaling.py             # mechanism check, virtual CPUs
+
+A virtual-CPU run checks the sharded program and its collectives; it says
+nothing about scaling on hardware.  Prints one JSON line per mesh size
+plus a summary efficiency line.
 """
 
 import json
@@ -18,30 +19,16 @@ import numpy as np
 
 
 def main():
-    import os
-
     import jax
-
-    # Opt into real hardware with SCALING_BACKEND=tpu (on a pod, one process
-    # per host, after parallel.multihost.initialize()).  Default: virtual
-    # CPU mesh.  Configure BEFORE any backend initialization.
-    if os.environ.get("SCALING_BACKEND", "cpu") == "tpu":
-        hardware = f"{len(jax.devices())}x {jax.devices()[0].device_kind}"
-    else:
-        jax.config.update("jax_platforms", "cpu")
-        jax.config.update("jax_num_cpu_devices", 8)
-        try:
-            import jax.extend.backend as _jb
-            _jb.clear_backends()
-        except Exception:
-            pass
-        hardware = "virtual-cpu-mesh (mechanism check, 1 real chip)"
-
     import jax.numpy as jnp
-    from simpledsp_tpu.models.northstar import ShardedNorthStarChain
-    from simpledsp_tpu.parallel import make_mesh
-    from simpledsp_tpu.utils.benchmark import time_streaming
+    from simpledsp_jax.models.northstar import ShardedNorthStarChain
+    from simpledsp_jax.parallel import make_mesh
+    from simpledsp_jax.utils.benchmark import time_streaming
+    from simpledsp_jax.utils.compile_cache import enable_compile_cache
 
+    enable_compile_cache()
+    d = jax.devices()[0]
+    hardware = f"{len(jax.devices())}x {d.platform} {d.device_kind}"
     rng = np.random.default_rng(0)
     c = 8
     t_per_dev = 1 << 16  # weak scaling: constant work per device
@@ -54,28 +41,22 @@ def main():
                                       dtype=jnp.float32)
         t = sp * t_per_dev
         x = jnp.asarray(rng.standard_normal((c, t)), dtype=jnp.float32)
-
-        def step(xv, st):
-            return chain(xv, st)
-
-        dt = time_streaming(step, x, None, iters=4, warmup=1)
+        dt = time_streaming(chain, x, None, iters=4, warmup=1)
         msps = c * t / dt / 1e6
         results.append((sp, msps))
         print(json.dumps({"metric": "sharded_chain_weak_scaling",
-                          "devices": sp, "value": round(msps, 1),
+                          "devices": sp, "value": msps,
                           "unit": "Msamples/s", "hardware": hardware}))
 
     if len(results) > 1:
         base = results[0][1]
         eff = [m / (base * sp) for sp, m in results]
         print(json.dumps({"metric": "weak_scaling_efficiency",
-                          "value": round(min(eff[1:]), 3),
+                          "value": min(eff[1:]),
                           "unit": "fraction",
-                          "per_mesh": {str(sp): round(e, 3)
+                          "per_mesh": {str(sp): e
                                        for (sp, _), e in zip(results, eff)},
-                          "hardware": hardware,
-                          "note": ("virtual CPU mesh exercises the sharded "
-                                   "program only; real scaling needs a pod")}))
+                          "hardware": hardware}))
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 """Wideband channelize -> per-channel rational resample -> long-FIR clean-up.
 
-Demonstrates the breadth ops working together on real TPU hardware:
+Demonstrates the breadth ops working together on the default JAX device:
 PFBChannelizer (RI path), PolyphaseResampler (3/2 rational rate change),
 and OverlapSaveFIR (FFT-domain long filter), all streaming with carried
 state.  Run from the repo root: python examples/channelize_resample.py
@@ -15,7 +15,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np
 import jax.numpy as jnp
 
-from simpledsp_tpu import (
+from simpledsp_jax import (
     OverlapSaveFIR,
     PFBChannelizer,
     PolyphaseResampler,

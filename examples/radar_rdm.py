@@ -1,4 +1,4 @@
-"""End-to-end radar scenario through the PUBLIC API on the real TPU chip:
+"""End-to-end radar scenario through the PUBLIC API on the default device:
 LFM pulse train with two moving targets -> matched filter -> range-
 Doppler map -> CA-CFAR detection, with ground-truth checks.
 """
@@ -18,9 +18,9 @@ def lap(m):
     print(f"[{time.time()-t0:6.1f}s] {m}", flush=True)
 
 
-from simpledsp_tpu.models.radar import (cfar_ca, lfm_chirp,  # noqa: E402
+from simpledsp_jax.models.radar import (cfar_ca, lfm_chirp,  # noqa: E402
                                         range_doppler_map)
-from simpledsp_tpu.utils.host import to_numpy  # noqa: E402
+from simpledsp_jax.utils.host import to_numpy  # noqa: E402
 
 # ---- scene: 2 targets at (range bin, Doppler bin) with SNR ~ 15 dB ----
 n_pulses, n_samp, n_chirp = 64, 512, 64

@@ -1,6 +1,6 @@
-// sdsp_io — native host-side streaming runtime for simpledsp_tpu.
+// sdsp_io — native host-side streaming runtime for simpledsp_jax.
 //
-// The TPU owns the math (JAX/XLA/Pallas); this library owns the host side
+// The accelerator owns the math (JAX/XLA); this library owns the host side
 // of the pipeline: a lock-free single-producer/single-consumer byte ring
 // buffer, SDR sample-format converters (interleaved int8/int16 IQ ->
 // separate float32 re/im planes, matching the framework's RI data path),
@@ -9,7 +9,7 @@
 // native C++): keeping the non-XLA part of the framework compiled code,
 // not Python loops.
 //
-// C ABI only (consumed via ctypes from simpledsp_tpu/runtime/stream.py).
+// C ABI only (consumed via ctypes from simpledsp_jax/runtime/stream.py).
 
 #include <atomic>
 #include <cstdint>
@@ -99,7 +99,7 @@ size_t sdsp_ring_pop(SdspRing* r, uint8_t* dst, size_t n) {
 
 // ---------------------------------------------------------------------------
 // SDR sample-format converters.  All write float32 planes, the framework's
-// native IQ representation (complex never materializes on the TPU path).
+// native IQ representation (complex never materializes on the device path).
 // Each converter has a single-threaded core over an index range plus a
 // fork-join multithreaded entry (nthreads <= 0 -> hardware concurrency):
 // production ingest blocks are hundreds of MB, where one core cannot reach

@@ -9,7 +9,7 @@ import scipy.fft as sfft
 import jax
 import jax.numpy as jnp
 
-from simpledsp_tpu.models.audio import (
+from simpledsp_jax.models.audio import (
     MelSpectrogram, _mel_bin_of_hz, mel_filterbank, mfcc)
 
 FS = 16000.0
@@ -94,8 +94,8 @@ class TestGriffinLim:
     def test_spectral_convergence(self, rng):
         """The defining GL property: |stft(y)| approaches the target
         magnitude monotonically with iterations."""
-        from simpledsp_tpu.models.audio import griffin_lim
-        from simpledsp_tpu.ops.spectral import stft_ri
+        from simpledsp_jax.models.audio import griffin_lim
+        from simpledsp_jax.ops.spectral import stft_ri
         t = np.arange(8192)
         x = np.sin(2 * np.pi * 0.03 * t) + 0.5 * np.sin(
             2 * np.pi * 0.11 * t + 1.0)
@@ -113,7 +113,7 @@ class TestGriffinLim:
         assert e50 < 0.15
 
     def test_jit_shapes_and_args(self, rng):
-        from simpledsp_tpu.models.audio import griffin_lim
+        from simpledsp_jax.models.audio import griffin_lim
         mag = jnp.asarray(np.abs(rng.standard_normal((2, 9, 129))))
         y = jax.jit(lambda m: griffin_lim(m, hop=64, n_iter=3))(mag)
         assert y.shape == (2, (9 - 1) * 64 + 256)

@@ -6,7 +6,7 @@ recovery, the EOF/drain path, and the saved-state resume contract
 import numpy as np
 import pytest
 
-from simpledsp_tpu import cli
+from simpledsp_jax import cli
 
 
 def _write_f32_tone(path, freq, fs, n, amp=1.0):

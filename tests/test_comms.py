@@ -12,8 +12,8 @@ from scipy.special import erfc
 
 import jax.numpy as jnp
 
-from simpledsp_tpu.design.fir import rrc_taps
-from simpledsp_tpu.models.comms import (Constellation, LinearModem, awgn,
+from simpledsp_jax.design.fir import rrc_taps
+from simpledsp_jax.models.comms import (Constellation, LinearModem, awgn,
                                         ber)
 
 
@@ -97,7 +97,7 @@ def test_ber_shape_check():
 
 class TestOFDM:
     def test_noiseless_loopback_exact(self, rng):
-        from simpledsp_tpu.models.comms import OFDMModem
+        from simpledsp_jax.models.comms import OFDMModem
         m = OFDMModem(Constellation.qam(16), n_fft=64, cp=16,
                       dtype=jnp.float64)
         bits = jnp.asarray(rng.integers(0, 2, (2, 20 * m.bits_per_symbol)))
@@ -110,7 +110,7 @@ class TestOFDM:
         """The OFDM claim itself: a multipath channel shorter than the
         cyclic prefix reduces to one complex scale per subcarrier, and
         zero-forcing equalization recovers every bit exactly."""
-        from simpledsp_tpu.models.comms import OFDMModem
+        from simpledsp_jax.models.comms import OFDMModem
         m = OFDMModem(Constellation.qam(16), n_fft=64, cp=16,
                       dtype=jnp.float64)
         bits = jnp.asarray(rng.integers(0, 2, (2, 12 * m.bits_per_symbol)))
@@ -126,7 +126,7 @@ class TestOFDM:
             m.demodulate(tr, ti, channel=(np.ones(40), np.zeros(40)))
 
     def test_qpsk_awgn_ber_tracks_theory(self, rng):
-        from simpledsp_tpu.models.comms import OFDMModem
+        from simpledsp_jax.models.comms import OFDMModem
         m = OFDMModem(Constellation.qpsk(), n_fft=64, cp=16,
                       dtype=jnp.float64)
         nsym = 300
@@ -141,7 +141,7 @@ class TestOFDM:
         assert 0.6 * theory < measured < 1.6 * theory
 
     def test_bad_args(self):
-        from simpledsp_tpu.models.comms import OFDMModem
+        from simpledsp_jax.models.comms import OFDMModem
         with pytest.raises(ValueError):
             OFDMModem(Constellation.qpsk(), n_fft=64, cp=64)
         m = OFDMModem(Constellation.qpsk(), n_fft=16, cp=4)
@@ -152,7 +152,7 @@ class TestOFDM:
 
 
 def test_ofdm_channel_validates_both_planes():
-    from simpledsp_tpu.models.comms import OFDMModem
+    from simpledsp_jax.models.comms import OFDMModem
     m = OFDMModem(Constellation.qpsk(), n_fft=64, cp=16)
     bits = jnp.zeros(2 * m.bits_per_symbol, jnp.int32)
     tr, ti = m.modulate(bits)

@@ -7,8 +7,8 @@ import scipy.signal as sig
 
 import jax.numpy as jnp
 
-from simpledsp_tpu.ops.conv2d import convolve2d, correlate2d
-from simpledsp_tpu.ops.fft import (fft2, fft2_ri, ifft2, irfft2_ri,
+from simpledsp_jax.ops.conv2d import convolve2d, correlate2d
+from simpledsp_jax.ops.fft import (fft2, fft2_ri, ifft2, irfft2_ri,
                                    rfft2_ri)
 
 
@@ -111,10 +111,10 @@ class TestConv2d:
             convolve2d(x, k, method="winograd")
 
 
-class TestFusedConv2dKernel:
-    """kernels/conv2d.py — the fused direct kernel vs the XLA shifted-FMA
-    oracle (interpret mode on CPU; the compiled path is A/B'd bit-exact
-    on chip, see ops/conv2d.py:_FUSED_DIRECT note)."""
+class TestConv2dShapes:
+    """The f32 direct route at the shapes the former fused direct kernel
+    was checked at (odd sizes, even and 1-wide kernels, extra batch
+    axes) against scipy in float64."""
 
     @pytest.mark.parametrize("shape,ks", [
         ((2, 70, 90), (9, 9)),
@@ -124,23 +124,20 @@ class TestFusedConv2dKernel:
         ((1, 17, 33), (4, 2)),
         ((1, 8, 130), (1, 3)),
     ])
-    def test_matches_direct_oracle(self, rng, shape, ks):
-        from simpledsp_tpu.kernels.conv2d import conv2d_valid_fused
-        from simpledsp_tpu.ops.conv2d import _conv2d_direct_real
-        x = jnp.asarray(rng.standard_normal(shape), jnp.float32)
+    def test_direct_f32_matches_scipy(self, rng, shape, ks):
+        x = rng.standard_normal(shape)
         k = rng.standard_normal(ks)
-        ref = _conv2d_direct_real(x, jnp.asarray(k, jnp.float32))
-        got = conv2d_valid_fused(x, k, interpret=True)
-        assert got.shape == ref.shape
-        np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
-                                   atol=1e-4)
+        got = np.asarray(convolve2d(jnp.asarray(x, jnp.float32), k,
+                                    "valid", method="direct"))
+        flat = x.reshape((-1,) + shape[-2:])
+        ref = np.stack([sig.convolve2d(a, k, "valid") for a in flat])
+        assert got.shape == ref.reshape(shape[:-2] + ref.shape[-2:]).shape
+        np.testing.assert_allclose(got.reshape(ref.shape), ref,
+                                   atol=2e-5 * np.abs(ref).max())
 
-    def test_gate_and_errors(self, rng):
-        from simpledsp_tpu.kernels.conv2d import (conv2d_fused_supported,
-                                                  conv2d_valid_fused)
-        assert conv2d_fused_supported(520, 520, 9, 9)
-        assert not conv2d_fused_supported(520, 520, 15, 15)  # > 169 taps
-        assert not conv2d_fused_supported(4000, 4000, 9, 9)  # VMEM
-        with pytest.raises(ValueError):
-            conv2d_valid_fused(jnp.zeros((1, 4, 4), jnp.float32),
-                               np.ones((9, 9)), interpret=True)
+    def test_direct_and_fft_routes_agree_9x9(self, rng):
+        x = jnp.asarray(rng.standard_normal((2, 96, 80)))
+        k = rng.standard_normal((9, 9))
+        a = np.asarray(convolve2d(x, k, "same", method="direct"))
+        b = np.asarray(convolve2d(x, k, "same", method="fft"))
+        np.testing.assert_allclose(a, b, atol=1e-10)

@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 import scipy.signal as sig
 
-from simpledsp_tpu.design import (
+from simpledsp_jax.design import (
     FilterType,
     design_bandpass,
     design_bandstop,
@@ -124,7 +124,7 @@ def test_odd_m_lowpass_matches_scipy():
     """Odd section counts are legal for LP/HP (order 2M Butterworth) —
     a deliberate loosening of the reference's blanket even-M assert."""
     import scipy.signal as sig
-    from simpledsp_tpu.design.biquad import sos_matrix
+    from simpledsp_jax.design.biquad import sos_matrix
     d = design_lowpass(3, 2000.0, FS)  # order 6
     z, p, k = sig.butter(6, 2000.0, fs=FS, output="zpk")
     sos = sig.zpk2sos(z, p, k)
@@ -135,7 +135,7 @@ def test_odd_m_lowpass_matches_scipy():
 
 def test_freq_response_matches_scipy():
     import scipy.signal as sig
-    from simpledsp_tpu.design.biquad import freq_response, sos_matrix
+    from simpledsp_jax.design.biquad import freq_response, sos_matrix
     d = design_lowpass(4, 2000.0, 39000.0)
     w, h = freq_response(d, n=256)
     w2, h2 = sig.sosfreqz(sos_matrix(d), worN=256, fs=39000.0)
@@ -147,7 +147,7 @@ def test_freq_response_matches_scipy():
 
 
 def test_group_delay_positive_in_passband():
-    from simpledsp_tpu.design.biquad import group_delay
+    from simpledsp_jax.design.biquad import group_delay
     d = design_lowpass(4, 2000.0, 39000.0)
     w, gd = group_delay(d, n=128)
     passband = gd[w < 1500.0]
@@ -158,7 +158,7 @@ def test_block_matches_scan_random_designs():
     """Property: block state-space condensation == scan oracle for random
     designs (catches condensation bugs beyond the fixture grid)."""
     import jax.numpy as jnp
-    from simpledsp_tpu.ops.iir import (
+    from simpledsp_jax.ops.iir import (
         BlockIIR, coeffs_from_design, iir_init, sosfilt_scan)
     rng = np.random.default_rng(11)
     for _ in range(5):
@@ -187,7 +187,7 @@ class TestFirwinBands:
 
     def test_highpass_matches_firwin(self):
         import scipy.signal as ss
-        from simpledsp_tpu.design.fir import highpass_taps, kaiser_beta
+        from simpledsp_jax.design.fir import highpass_taps, kaiser_beta
 
         h = highpass_taps(101, 8e3, fs=48e3, atten_db=70.0)
         ref = ss.firwin(101, 8e3, fs=48e3, pass_zero=False,
@@ -196,7 +196,7 @@ class TestFirwinBands:
 
     def test_bandpass_matches_firwin(self):
         import scipy.signal as ss
-        from simpledsp_tpu.design.fir import bandpass_taps, kaiser_beta
+        from simpledsp_jax.design.fir import bandpass_taps, kaiser_beta
 
         h = bandpass_taps(128, 4e3, 9e3, fs=48e3, atten_db=60.0)
         ref = ss.firwin(128, [4e3, 9e3], fs=48e3, pass_zero=False,
@@ -205,7 +205,7 @@ class TestFirwinBands:
 
     def test_bandstop_matches_firwin(self):
         import scipy.signal as ss
-        from simpledsp_tpu.design.fir import bandstop_taps, kaiser_beta
+        from simpledsp_jax.design.fir import bandstop_taps, kaiser_beta
 
         h = bandstop_taps(151, 4e3, 9e3, fs=48e3, atten_db=60.0)
         ref = ss.firwin(151, [4e3, 9e3], fs=48e3, pass_zero=True,
@@ -214,7 +214,7 @@ class TestFirwinBands:
 
     def test_stopband_attenuation(self):
         """Frequency-domain gate: >= 75 dB down in the designed stopband."""
-        from simpledsp_tpu.design.fir import bandstop_taps
+        from simpledsp_jax.design.fir import bandstop_taps
 
         h = bandstop_taps(201, 0.2, 0.3, fs=1.0, atten_db=80.0)
         f = np.linspace(0, 0.5, 4001)
@@ -225,7 +225,7 @@ class TestFirwinBands:
         assert abs(mag[0] - 1.0) < 1e-6
 
     def test_even_taps_at_nyquist_rejected(self):
-        from simpledsp_tpu.design.fir import bandstop_taps, highpass_taps
+        from simpledsp_jax.design.fir import bandstop_taps, highpass_taps
 
         with pytest.raises(ValueError):
             highpass_taps(100, 8e3, fs=48e3)
@@ -239,7 +239,7 @@ class TestCheby1:
                                          (5, 3.0, 0.6)])
     def test_matches_scipy_ba(self, m, rp, wn):
         import scipy.signal as ss
-        from simpledsp_tpu.design.biquad import (ba_coefficients,
+        from simpledsp_jax.design.biquad import (ba_coefficients,
                                                  design_cheby1_lowpass)
 
         d = design_cheby1_lowpass(m, rp, wn, 2.0)
@@ -251,7 +251,7 @@ class TestCheby1:
     def test_impulse_response_gate(self):
         """Same 1e-12 impulse-response gate the golden fixtures use."""
         import scipy.signal as ss
-        from simpledsp_tpu.design.biquad import (design_cheby1_lowpass,
+        from simpledsp_jax.design.biquad import (design_cheby1_lowpass,
                                                  sos_matrix)
 
         d = design_cheby1_lowpass(4, 0.05, 3000.0, 39000.0)
@@ -263,7 +263,7 @@ class TestCheby1:
         assert np.max(np.abs(got - want)) < 1e-12
 
     def test_rejects_bad_args(self):
-        from simpledsp_tpu.design.biquad import design_cheby1_lowpass
+        from simpledsp_jax.design.biquad import design_cheby1_lowpass
 
         with pytest.raises(ValueError):
             design_cheby1_lowpass(0, 0.05, 0.1, 2.0)
@@ -282,14 +282,14 @@ class TestFirwin2:
     ])
     def test_matches_scipy(self, nt, f, g, kw):
         import scipy.signal as ss
-        from simpledsp_tpu.design.fir import firwin2
+        from simpledsp_jax.design.fir import firwin2
 
         got = firwin2(nt, f, g, **kw)
         want = ss.firwin2(nt, f, g, **kw)
         np.testing.assert_allclose(got, want, atol=1e-15)
 
     def test_rejects_bad_specs(self):
-        from simpledsp_tpu.design.fir import firwin2
+        from simpledsp_jax.design.fir import firwin2
 
         with pytest.raises(ValueError):
             firwin2(65, [0, 0.5], [1, 1])           # must end at 1
@@ -311,7 +311,7 @@ class TestCheby2:
                                          (5, 30.0, 0.7), (3, 80.0, 0.45)])
     def test_matches_scipy_ba(self, m, rs, wn):
         import scipy.signal as ss
-        from simpledsp_tpu.design.biquad import (ba_coefficients,
+        from simpledsp_jax.design.biquad import (ba_coefficients,
                                                  design_cheby2_lowpass)
 
         d = design_cheby2_lowpass(m, rs, wn, 2.0)
@@ -322,7 +322,7 @@ class TestCheby2:
 
     def test_stopband_attenuation_holds(self):
         import scipy.signal as ss
-        from simpledsp_tpu.design.biquad import (design_cheby2_lowpass,
+        from simpledsp_jax.design.biquad import (design_cheby2_lowpass,
                                                  sos_matrix)
 
         d = design_cheby2_lowpass(4, 50.0, 6000.0, 48000.0)
@@ -336,7 +336,7 @@ class TestLTIConversions:
     """design/ltisys.py — representation-conversion family vs scipy."""
 
     def test_tf_zpk_round_trip(self):
-        from simpledsp_tpu.design import ltisys as lt
+        from simpledsp_jax.design import ltisys as lt
         b = np.array([0.5, 1.2, -0.3])
         a = np.array([2.0, 0.4, 0.9, 0.1])
         z1, p1, k1 = lt.tf2zpk(b, a)
@@ -350,7 +350,7 @@ class TestLTIConversions:
         np.testing.assert_allclose(aa, as_, atol=1e-12)
 
     def test_sos_family(self):
-        from simpledsp_tpu.design import ltisys as lt
+        from simpledsp_jax.design import ltisys as lt
         sos = sig.butter(6, 0.3, output="sos")
         bt, at = lt.sos2tf(sos)
         bts, ats = sig.sos2tf(sos)
@@ -369,7 +369,7 @@ class TestLTIConversions:
         np.testing.assert_allclose(h1, h2, atol=1e-9)
 
     def test_normalize(self):
-        from simpledsp_tpu.design import ltisys as lt
+        from simpledsp_jax.design import ltisys as lt
         bn, an = lt.normalize([0.0, 2.0, 4.0], [2.0, 1.0])
         bns, ans = sig.normalize([0.0, 2.0, 4.0], [2.0, 1.0])
         np.testing.assert_allclose(bn, bns)
@@ -382,7 +382,7 @@ class TestLTIConversions:
         with pytest.raises(ValueError):
             lt.normalize([1.0], [0.0, 0.0])      # all-zero denominator
         # near-zero numerator columns trim with the scipy warning class
-        from simpledsp_tpu.design.ltisys import BadCoefficients
+        from simpledsp_jax.design.ltisys import BadCoefficients
         with pytest.warns(BadCoefficients):
             bn, an = lt.normalize([1e-16, 1.0], [1.0, 0.5])
         import warnings as _w
@@ -395,7 +395,7 @@ class TestLTIConversions:
     @pytest.mark.parametrize("method", ["bilinear", "euler",
                                         "backward_diff", "zoh"])
     def test_cont2discrete_matches_scipy(self, method):
-        from simpledsp_tpu.design import ltisys as lt
+        from simpledsp_jax.design import ltisys as lt
         bc, ac = sig.butter(3, 10.0, analog=True)
         bd, ad, dt = lt.cont2discrete((bc, ac), 0.01, method=method)
         ref = sig.cont2discrete((bc, ac), 0.01, method=method)
@@ -410,7 +410,7 @@ class TestDesignGlue:
     """sosfreqz / bilinear / tf2ss / ss2tf / iirdesign vs scipy."""
 
     def test_sosfreqz_matches_scipy(self):
-        from simpledsp_tpu.design import sosfreqz
+        from simpledsp_jax.design import sosfreqz
         sos = sig.butter(6, 0.3, output="sos")
         w1, h1 = sosfreqz(sos, 256)
         w2, h2 = sig.sosfreqz(sos, worN=256)
@@ -420,7 +420,7 @@ class TestDesignGlue:
             sosfreqz(np.zeros((2, 5)))
 
     def test_bilinear_matches_scipy(self):
-        from simpledsp_tpu.design import bilinear
+        from simpledsp_jax.design import bilinear
         bc, ac = sig.butter(3, 10.0, analog=True)
         bd, ad = bilinear(bc, ac, fs=100.0)
         bds, ads = sig.bilinear(bc, ac, fs=100.0)
@@ -428,7 +428,7 @@ class TestDesignGlue:
         np.testing.assert_allclose(ad, ads, atol=1e-12)
 
     def test_tf2ss_ss2tf_round_trip(self):
-        from simpledsp_tpu.design import ss2tf, tf2ss
+        from simpledsp_jax.design import ss2tf, tf2ss
         b = np.array([0.5, 1.2, -0.3])
         a = np.array([2.0, 0.4, 0.9, 0.1])
         A, B, C, D = tf2ss(b, a)
@@ -447,7 +447,7 @@ class TestDesignGlue:
         ([0.1, 0.6], [0.2, 0.5], 1.0, 30.0, "cheby2"),
     ])
     def test_iirdesign_matches_scipy_response(self, wp, ws, gp, gs, ft):
-        from simpledsp_tpu.design import iirdesign
+        from simpledsp_jax.design import iirdesign
         sos = iirdesign(wp, ws, gp, gs, ftype=ft, output="sos")
         sos_s = sig.iirdesign(wp, ws, gp, gs, ftype=ft, output="sos")
         _, h1 = sig.sosfreqz(sos, worN=512)
@@ -461,7 +461,7 @@ class TestLTISimulation:
     """lsim / impulse / step / dlsim family vs scipy (design/ltisys.py)."""
 
     def test_lsim_foh_and_zoh_match_scipy(self, rng):
-        from simpledsp_tpu.design import ltisys as lt
+        from simpledsp_jax.design import ltisys as lt
         bc, ac = sig.butter(3, 8.0, analog=True)
         t = np.linspace(0, 2, 201)
         u = np.sin(3 * t) + 0.2 * rng.standard_normal(t.size)
@@ -475,7 +475,7 @@ class TestLTISimulation:
             lt.lsim((bc, ac), u[:-1], t)
 
     def test_impulse_step_match_scipy(self):
-        from simpledsp_tpu.design import ltisys as lt
+        from simpledsp_jax.design import ltisys as lt
         bc, ac = sig.butter(3, 8.0, analog=True)
         t = np.linspace(0, 2, 201)
         _, y1 = lt.impulse((bc, ac), t=t)
@@ -489,7 +489,7 @@ class TestLTISimulation:
         assert td.size == 100 and np.all(np.isfinite(yd))
 
     def test_discrete_family_matches_scipy(self, rng):
-        from simpledsp_tpu.design import ltisys as lt
+        from simpledsp_jax.design import ltisys as lt
         bc, ac = sig.butter(3, 8.0, analog=True)
         bd, ad, dt = lt.cont2discrete((bc, ac), 0.01)
         u = rng.standard_normal(100)
@@ -507,7 +507,7 @@ class TestLTISimulation:
             lt.dlsim((bd, ad, dt), u, x0=np.zeros(3))
 
     def test_bode_freqresp_match_scipy(self):
-        from simpledsp_tpu.design import ltisys as lt
+        from simpledsp_jax.design import ltisys as lt
         bc, ac = sig.butter(3, 8.0, analog=True)
         w = np.logspace(-1, 2, 60)
         w1, m1, p1 = lt.bode((bc, ac), w)
@@ -525,7 +525,7 @@ class TestLTISimulation:
 
 
 def test_dfreqresp_matches_scipy():
-    from simpledsp_tpu.design import ltisys as lt
+    from simpledsp_jax.design import ltisys as lt
     bc, ac = sig.butter(3, 8.0, analog=True)
     bd, ad, dt = lt.cont2discrete((bc, ac), 0.01)
     w = np.linspace(0.1, 100.0, 40)
@@ -537,7 +537,7 @@ def test_dfreqresp_matches_scipy():
 def test_discrete_z_polynomial_convention():
     """(b, a, dt) uses scipy's z-polynomial convention: a shorter
     numerator is relative degree = delay (review-fixed regression pin)."""
-    from simpledsp_tpu.design import ltisys as lt
+    from simpledsp_jax.design import ltisys as lt
     sys_ = ([1.0], [1.0, -0.5], 1.0)
     imp = np.eye(1, 8)[0]
     _, y1 = lt.dlsim(sys_, imp)
@@ -552,7 +552,7 @@ def test_discrete_z_polynomial_convention():
 
 
 def test_sos2zpk_unnormalized_sections():
-    from simpledsp_tpu.design import ltisys as lt
+    from simpledsp_jax.design import ltisys as lt
     sos = np.array([[2, 1, .5, 2, -.4, .1], [1, .3, .2, 1, -.2, .05]])
     _, _, k1 = lt.sos2zpk(sos)
     _, _, k2 = sig.sos2zpk(sos)
@@ -563,7 +563,7 @@ def test_lp2_frequency_transforms_match_scipy():
     """Polynomial-level analog frequency transforms (round 5: the
     scipy.signal lp2lp/lp2hp/lp2bp/lp2bs names; zpk-level forms live in
     design/iir.py)."""
-    from simpledsp_tpu.design import ltisys as lt
+    from simpledsp_jax.design import ltisys as lt
     cases = [
         (np.array([1.0]), np.array([1.0, 1.4142, 1.0])),
         (np.array([2.0, 1.0]), np.array([1.0, 2.0, 3.0, 1.0])),
@@ -589,7 +589,7 @@ def test_lp2_frequency_transforms_match_scipy():
 
 
 def test_ss_zpk_roundtrip_matches_scipy():
-    from simpledsp_tpu.design import ltisys as lt
+    from simpledsp_jax.design import ltisys as lt
     rng = np.random.default_rng(3)
     A = rng.standard_normal((4, 4))
     B = rng.standard_normal((4, 1))
@@ -617,7 +617,7 @@ def test_sos2zpk_degenerate_numerator():
     """Sections with b0 == 0 (advisor round-4 finding): scipy routes each
     row through tf2zpk/normalize, so a pure-delay section contributes its
     first NONZERO numerator coefficient as gain, not b0/a0 == 0."""
-    from simpledsp_tpu.design import ltisys as lt
+    from simpledsp_jax.design import ltisys as lt
     for sos in (np.array([[0., 1., 0., 1., -.5, 0.]]),          # pure delay
                 np.array([[0., 2., .3, 1., -.2, .05],            # b0=0 pair
                           [1., .3, .2, 1., -.2, .05]]),
@@ -634,7 +634,7 @@ def test_sos2zpk_degenerate_numerator():
 def test_lp2_transforms_preserve_complex_prototypes():
     """Complex analog prototypes flow through lp2* and tf2zpk unharmed
     (round-5 review fix: the f64 coercion silently realized them)."""
-    from simpledsp_tpu.design import ltisys as lt
+    from simpledsp_jax.design import ltisys as lt
     b = np.array([1 + 0.5j])
     a = np.array([1, 0.3 + 0.2j, 1])
     for mine, ref in ((lt.lp2lp, sig.lp2lp), (lt.lp2hp, sig.lp2hp)):
@@ -655,8 +655,8 @@ def test_lp2_transforms_preserve_complex_prototypes():
 def test_analog_plumbing_matches_scipy():
     """Round 5: the scipy-named analog plumbing — *ap prototype aliases,
     findfreqs grids, abcd_normalize shape inference."""
-    from simpledsp_tpu.design import ltisys as lt
-    from simpledsp_tpu.design.iir import (besselap, buttap, cheb1ap,
+    from simpledsp_jax.design import ltisys as lt
+    from simpledsp_jax.design.iir import (besselap, buttap, cheb1ap,
                                           cheb2ap, ellipap)
     for mine, ref, args in ((buttap, sig.buttap, (4,)),
                             (cheb1ap, sig.cheb1ap, (4, 1.0)),
@@ -702,7 +702,7 @@ def test_analog_plumbing_matches_scipy():
 def test_band_stop_obj_matches_scipy():
     """Round 5: the public band-stop order objective (the function the
     *ord selectors minimize for band-stop designs)."""
-    from simpledsp_tpu.design.iir import band_stop_obj
+    from simpledsp_jax.design.iir import band_stop_obj
     passb = np.array([0.8, 2.2])
     stopb = np.array([1.0, 2.0])
     for wp, ind in ((0.9, 0), (2.1, 1), (0.85, 0)):

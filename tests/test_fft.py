@@ -14,7 +14,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from simpledsp_tpu.ops.fft import fft, fft_radix2, fft_radix4, ifft
+from simpledsp_jax.ops.fft import fft, fft_radix2, fft_radix4, ifft
 
 EPS = np.finfo(np.float64).eps
 
@@ -113,7 +113,7 @@ def test_radix_wrappers():
 
 @pytest.mark.parametrize("n", [1024, 4096])
 def test_f32_snr(n):
-    """float32 path (the TPU compute dtype): SNR vs f64 numpy > 120 dB."""
+    """float32 path (the device compute dtype): SNR vs f64 numpy > 120 dB."""
     rng = np.random.default_rng(15)
     x = rng.standard_normal((8, n)) + 1j * rng.standard_normal((8, n))
     ours = np.asarray(fft(jnp.asarray(x, dtype=jnp.complex64)))
@@ -124,7 +124,7 @@ def test_f32_snr(n):
 
 
 def test_rfft_irfft_roundtrip(rng):
-    from simpledsp_tpu.ops.fft import irfft, rfft
+    from simpledsp_jax.ops.fft import irfft, rfft
     x = rng.standard_normal((3, 1024))
     half = rfft(jnp.asarray(x))
     assert half.shape == (3, 513)
@@ -137,7 +137,7 @@ def test_rfft_irfft_roundtrip(rng):
 def test_rfft_ri_matches_numpy(rng, n):
     """True half-spectrum path (even n: half-size packed transform +
     Hermitian post-twiddle; odd n: fallback) vs numpy, both directions."""
-    from simpledsp_tpu.ops.fft import irfft_ri, rfft_ri
+    from simpledsp_jax.ops.fft import irfft_ri, rfft_ri
     x = rng.standard_normal((3, n))
     yr, yi = rfft_ri(jnp.asarray(x))
     assert yr.shape == (3, n // 2 + 1)
@@ -152,7 +152,7 @@ def test_rfft_half_cost(rng):
     """The even-size rfft must actually run the packed half-size transform:
     its HLO flop estimate stays under ~60% of the full fft's."""
     import jax
-    from simpledsp_tpu.ops.fft import fft, rfft
+    from simpledsp_jax.ops.fft import fft, rfft
 
     def cost(fn, x):
         c = jax.jit(fn).lower(x).compile().cost_analysis()
@@ -167,7 +167,7 @@ def test_rfft_half_cost(rng):
 
 def test_welch_psd_matches_scipy(rng):
     import scipy.signal as sig
-    from simpledsp_tpu.ops.spectral import welch_psd
+    from simpledsp_jax.ops.spectral import welch_psd
     fs = 1000.0
     t = np.arange(16384) / fs
     # DC offset makes detrend behavior observable: scipy's default
@@ -187,7 +187,7 @@ def test_welch_psd_matches_scipy(rng):
 
 
 def test_spectrogram_tone_bin(rng):
-    from simpledsp_tpu.ops.spectral import spectrogram_ri
+    from simpledsp_jax.ops.spectral import spectrogram_ri
     n = 1024
     x = np.cos(2 * np.pi * 128 * np.arange(8 * n) / n)
     sr, si = spectrogram_ri(jnp.asarray(x), nfft=n, window="rect")
@@ -198,7 +198,7 @@ def test_spectrogram_tone_bin(rng):
 
 def test_csd_matches_scipy(rng):
     import scipy.signal as sig
-    from simpledsp_tpu.ops.spectral import csd_ri
+    from simpledsp_jax.ops.spectral import csd_ri
     fs = 2000.0
     t = np.arange(8192) / fs
     x = np.sin(2 * np.pi * 97.0 * t) + 0.2 * rng.standard_normal(t.size)
@@ -215,7 +215,7 @@ def test_csd_matches_scipy(rng):
 
 def test_coherence_matches_scipy(rng):
     import scipy.signal as sig
-    from simpledsp_tpu.ops.spectral import coherence
+    from simpledsp_jax.ops.spectral import coherence
     fs = 1000.0
     t = np.arange(16384) / fs
     s = np.sin(2 * np.pi * 61.0 * t)
@@ -230,7 +230,7 @@ def test_coherence_matches_scipy(rng):
 
 def test_periodogram_matches_scipy(rng):
     import scipy.signal as sig
-    from simpledsp_tpu.ops.spectral import periodogram
+    from simpledsp_jax.ops.spectral import periodogram
     x = rng.standard_normal(3000) + 2.0
     for window, nfft, detrend in (("boxcar", None, "constant"),
                                   ("hann", 4096, "constant"),
@@ -248,7 +248,7 @@ def test_spectrogram_direct_matches_fft(rng):
     """The windowed-DFT matmul route ('direct') must agree with the
     four-step FFT route ('fft') bin-for-bin, one- and two-sided, with
     window + detrend in play."""
-    from simpledsp_tpu.ops.spectral import spectrogram_ri
+    from simpledsp_jax.ops.spectral import spectrogram_ri
     x = jnp.asarray(rng.standard_normal((3, 5000)))
     for nfft, hop in ((256, 128), (250, 125), (1024, 1024)):
         for onesided in (False, True):
@@ -275,7 +275,7 @@ def test_welch_odd_nfft_matches_scipy(rng):
     """Regression: odd nfft has no Nyquist bin — top bin must not be
     halved."""
     import scipy.signal as sig
-    from simpledsp_tpu.ops.spectral import welch_psd
+    from simpledsp_jax.ops.spectral import welch_psd
     x = rng.standard_normal(8000)
     f1, p1 = welch_psd(jnp.asarray(x), nfft=125, fs=500.0)
     # our hop is nfft//2 = 62 -> scipy noverlap = nperseg - hop = 63

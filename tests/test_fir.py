@@ -12,8 +12,8 @@ import scipy.signal as sig
 
 import jax.numpy as jnp
 
-from simpledsp_tpu.design.fir import lowpass_taps, resampler_taps
-from simpledsp_tpu.ops.fir import (
+from simpledsp_jax.design.fir import lowpass_taps, resampler_taps
+from simpledsp_jax.ops.fir import (
     FIRFilter,
     OverlapSaveFIR,
     PolyphaseDecimator,
@@ -34,7 +34,7 @@ def test_firwin_scipy_parity_all_band_types():
     """The scipy-named entry point matches scipy.signal.firwin
     tap-for-tap across lowpass/highpass/bandpass/bandstop/multiband and
     window specs."""
-    from simpledsp_tpu.design import firwin
+    from simpledsp_jax.design import firwin
 
     cases = [
         dict(num_taps=65, cutoff=0.3, pass_zero=True),
@@ -59,7 +59,7 @@ def test_firwin_scipy_parity_all_band_types():
 
 
 def test_firwin_rejects_bad_args():
-    from simpledsp_tpu.design import firwin
+    from simpledsp_jax.design import firwin
 
     with pytest.raises(ValueError):
         firwin(64, [0.4, 0.2])                       # non-ascending edges
@@ -187,7 +187,7 @@ class TestFourierResample:
                                        (100, 64), (128, 100), (100, 100)])
     def test_matches_scipy(self, rng, n, num):
         import scipy.signal as ss
-        from simpledsp_tpu.ops.fir import resample
+        from simpledsp_jax.ops.fir import resample
 
         x = rng.standard_normal((3, n))
         got = np.asarray(resample(jnp.asarray(x), num))
@@ -196,7 +196,7 @@ class TestFourierResample:
         assert np.max(np.abs(got - ref)) < 1e-10
 
     def test_rejects_complex_and_bad_num(self, rng):
-        from simpledsp_tpu.ops.fir import resample
+        from simpledsp_jax.ops.fir import resample
 
         with pytest.raises(ValueError):
             resample(jnp.asarray(np.ones(8, dtype=np.complex128)), 4)
@@ -210,7 +210,7 @@ class TestDecimate:
     @pytest.mark.parametrize("zero_phase", [True, False])
     def test_matches_scipy(self, rng, q, ftype, zero_phase):
         import scipy.signal as ss
-        from simpledsp_tpu.ops.fir import decimate
+        from simpledsp_jax.ops.fir import decimate
 
         x = rng.standard_normal((2, 1000))
         got = np.asarray(decimate(jnp.asarray(x), q, ftype=ftype,
@@ -221,7 +221,7 @@ class TestDecimate:
         np.testing.assert_allclose(got, ref, rtol=1e-9, atol=1e-11)
 
     def test_rejects_bad_args(self, rng):
-        from simpledsp_tpu.ops.fir import decimate
+        from simpledsp_jax.ops.fir import decimate
 
         x = jnp.asarray(rng.standard_normal(100))
         with pytest.raises(ValueError):
@@ -238,7 +238,7 @@ class TestResamplePoly:
     @pytest.mark.parametrize("t", [1000, 997])
     def test_matches_scipy(self, rng, up, down, t):
         import scipy.signal as ss
-        from simpledsp_tpu.ops.fir import resample_poly
+        from simpledsp_jax.ops.fir import resample_poly
 
         x = rng.standard_normal((2, t)) + 2.0
         got = np.asarray(resample_poly(jnp.asarray(x), up, down))
@@ -248,7 +248,7 @@ class TestResamplePoly:
 
     def test_padtypes_window_and_taps(self, rng):
         import scipy.signal as ss
-        from simpledsp_tpu.ops.fir import resample_poly
+        from simpledsp_jax.ops.fir import resample_poly
 
         x = rng.standard_normal(800) + 3.0
         for padtype in ("mean", "median", "minimum", "maximum"):
@@ -266,7 +266,7 @@ class TestResamplePoly:
         np.testing.assert_allclose(got, want, atol=1e-12)
 
     def test_identity_and_errors(self, rng):
-        from simpledsp_tpu.ops.fir import resample_poly
+        from simpledsp_jax.ops.fir import resample_poly
 
         x = jnp.asarray(rng.standard_normal(64))
         assert resample_poly(x, 3, 3) is x
@@ -277,7 +277,7 @@ class TestResamplePoly:
 
 
 def test_firwin_2d_matches_scipy():
-    from simpledsp_tpu.design.fir import firwin_2d
+    from simpledsp_jax.design.fir import firwin_2d
     a = firwin_2d((15, 21), ("hamming", "blackman"), fc=0.3)
     b = sig.firwin_2d((15, 21), ("hamming", "blackman"), fc=0.3)
     np.testing.assert_allclose(a, b, atol=1e-15)
@@ -293,7 +293,7 @@ def test_firwin_2d_matches_scipy():
 
 
 def test_fftconvolve_oaconvolve_aliases(rng):
-    from simpledsp_tpu.ops.conv import fftconvolve, oaconvolve
+    from simpledsp_jax.ops.conv import fftconvolve, oaconvolve
     x = rng.standard_normal(500)
     h = rng.standard_normal(31)
     for mode in ("full", "same", "valid"):
@@ -309,7 +309,7 @@ def test_fftconvolve_oaconvolve_aliases(rng):
                                          (4, 1, 50, 16), (5, 7, 211, 61),
                                          (1, 1, 40, 7)])
 def test_upfirdn_full_length_matches_scipy(rng, up, down, n, m):
-    from simpledsp_tpu.ops.fir import upfirdn
+    from simpledsp_jax.ops.fir import upfirdn
     h = rng.standard_normal(m)
     x = rng.standard_normal((2, n))
     got = np.asarray(upfirdn(h, jnp.asarray(x), up, down))
@@ -324,7 +324,7 @@ def test_firwin_multiband_scaling_matches_scipy():
     regression pin: multiband pass_zero=False previously scaled at
     Nyquist)."""
     for win in ("blackman", "hamming", ("kaiser", 6.0)):
-        from simpledsp_tpu.design import firwin
+        from simpledsp_jax.design import firwin
         ours = firwin(33, [0.2, 0.4, 0.6], window=win, pass_zero=False)
         ref = sig.firwin(33, [0.2, 0.4, 0.6], window=win, pass_zero=False)
         np.testing.assert_allclose(ours, ref, atol=1e-12)

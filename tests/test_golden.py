@@ -13,14 +13,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from simpledsp_tpu.design.biquad import (
+from simpledsp_jax.design.biquad import (
     FilterType,
     design_bandpass,
     design_highpass,
     design_lowpass,
 )
-from simpledsp_tpu.ops.iir import coeffs_from_design, iir_init, sosfilt_scan
-from simpledsp_tpu.utils.fixtures import read_fixture
+from simpledsp_jax.ops.iir import coeffs_from_design, iir_init, sosfilt_scan
+from simpledsp_jax.utils.fixtures import read_fixture
 
 FIXTURE_DIR = (pathlib.Path(__file__).parent.parent
                / "test_data" / "impulse_response")

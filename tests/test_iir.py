@@ -14,14 +14,14 @@ import scipy.signal as sig
 
 import jax.numpy as jnp
 
-from simpledsp_tpu.design import (
+from simpledsp_jax.design import (
     design_bandpass,
     design_bandstop,
     design_highpass,
     design_lowpass,
     sos_matrix,
 )
-from simpledsp_tpu.ops.iir import (
+from simpledsp_jax.ops.iir import (
     BlockIIR,
     coeffs_from_design,
     iir_init,
@@ -113,7 +113,7 @@ def test_blockiir_matches_oracle_f64(kind, design):
 
 @pytest.mark.parametrize("kind,design", DESIGNS[:3], ids=IDS[:3])
 def test_blockiir_f32_snr(kind, design):
-    """float32 TPU path: SNR vs the float64 oracle must exceed 90 dB
+    """float32 device path: SNR vs the float64 oracle must exceed 90 dB
     (the f32 analog of the reference's 1e-12 f64 gate, per SURVEY.md §7)."""
     rng = np.random.default_rng(4)
     x = rng.standard_normal(4096)
@@ -182,9 +182,9 @@ def test_sosfilt_convenience_paths_agree():
 def test_sosfiltfilt_matches_scipy():
     """Zero-phase forward-backward cascade vs scipy.signal.sosfiltfilt
     (same padding + steady-state edge init), LP/HP/BP designs."""
-    from simpledsp_tpu.design import design_bandpass, design_lowpass
-    from simpledsp_tpu.design.biquad import sos_matrix
-    from simpledsp_tpu.ops.iir import sosfiltfilt
+    from simpledsp_jax.design import design_bandpass, design_lowpass
+    from simpledsp_jax.design.biquad import sos_matrix
+    from simpledsp_jax.ops.iir import sosfiltfilt
 
     rng = np.random.default_rng(11)
     x = rng.standard_normal((2, 3000)) + 1.5
@@ -197,8 +197,8 @@ def test_sosfiltfilt_matches_scipy():
 
 
 def test_sosfiltfilt_rejects_long_padlen():
-    from simpledsp_tpu.design import design_lowpass
-    from simpledsp_tpu.ops.iir import sosfiltfilt
+    from simpledsp_jax.design import design_lowpass
+    from simpledsp_jax.ops.iir import sosfiltfilt
 
     design = design_lowpass(M, 2000.0, FS)
     with pytest.raises(ValueError):
@@ -208,7 +208,7 @@ def test_sosfiltfilt_rejects_long_padlen():
 def test_sosfilt_zi_matches_scipy():
     import scipy.signal as sig
 
-    from simpledsp_tpu.ops.iir import sosfilt_zi
+    from simpledsp_jax.ops.iir import sosfilt_zi
     for sos in (sig.butter(6, 0.3, output="sos"),
                 sig.cheby1(5, 1.0, 0.2, output="sos"),
                 sig.ellip(4, 0.5, 40.0, [0.2, 0.5], btype="bandpass",

@@ -13,8 +13,8 @@ import scipy.signal as sig
 
 import jax.numpy as jnp
 
-from simpledsp_tpu.design import iir as dz
-from simpledsp_tpu.ops.iir import sosfilt
+from simpledsp_jax.design import iir as dz
+from simpledsp_jax.ops.iir import sosfilt
 
 
 def impulse_response(sos, n=4096):
@@ -176,7 +176,7 @@ def test_zpk2sos_transfer_invariant(n, btype, wn):
 
 def test_iirnotch_matches_scipy():
     des = dz.iirnotch(1500.0, 30.0, fs=48000.0)
-    from simpledsp_tpu.design.biquad import sos_matrix
+    from simpledsp_jax.design.biquad import sos_matrix
     b_sp, a_sp = sig.iirnotch(1500.0, 30.0, fs=48000.0)
     ours = impulse_response(sos_matrix(des))
     theirs = sig.lfilter(b_sp, a_sp, np.eye(1, 4096, 0)[0])
@@ -185,7 +185,7 @@ def test_iirnotch_matches_scipy():
 
 def test_iirpeak_matches_scipy():
     des = dz.iirpeak(0.25 * 2, 12.0)  # scipy normalized w0 at fs=2
-    from simpledsp_tpu.design.biquad import sos_matrix
+    from simpledsp_jax.design.biquad import sos_matrix
     b_sp, a_sp = sig.iirpeak(0.5, 12.0)
     ours = impulse_response(sos_matrix(des))
     theirs = sig.lfilter(b_sp, a_sp, np.eye(1, 4096, 0)[0])
@@ -219,7 +219,7 @@ def test_invalid_args_raise():
 
 class TestGammatone:
     def test_matches_scipy_fir_and_iir(self):
-        from simpledsp_tpu.design.iir import gammatone
+        from simpledsp_jax.design.iir import gammatone
         for freq, fs in [(440.0, 16000.0), (1000.0, 44100.0), (0.3, 2.0)]:
             b1, a1 = gammatone(freq, "fir", fs=fs)
             b2, a2 = sig.gammatone(freq, "fir", fs=fs)
@@ -231,14 +231,14 @@ class TestGammatone:
             np.testing.assert_allclose(a1, np.asarray(a2), atol=1e-12)
 
     def test_unit_gain_at_center(self):
-        from simpledsp_tpu.design.iir import gammatone
-        from simpledsp_tpu.ops.lfilter import freqz
+        from simpledsp_jax.design.iir import gammatone
+        from simpledsp_jax.ops.lfilter import freqz
         b, a = gammatone(1000.0, "iir", fs=16000.0)
         w, h = freqz(b, a, 4096, fs=16000.0)
         assert abs(np.abs(h[np.argmin(np.abs(w - 1000.0))]) - 1.0) < 1e-3
 
     def test_bad_args(self):
-        from simpledsp_tpu.design.iir import gammatone
+        from simpledsp_jax.design.iir import gammatone
         with pytest.raises(ValueError):
             gammatone(0.0, "fir", fs=2.0)
         with pytest.raises(ValueError):
@@ -248,7 +248,7 @@ class TestGammatone:
 
 
 def test_gammatone_ftype_case_and_warnings():
-    from simpledsp_tpu.design.iir import gammatone
+    from simpledsp_jax.design.iir import gammatone
     b1, a1 = gammatone(440.0, "FIR", fs=16000.0)
     b2, a2 = gammatone(440.0, "fir", fs=16000.0)
     np.testing.assert_array_equal(b1, b2)
@@ -259,5 +259,5 @@ def test_gammatone_ftype_case_and_warnings():
 
 
 def test_gammatone_star_export():
-    import simpledsp_tpu.design.iir as m
+    import simpledsp_jax.design.iir as m
     assert "gammatone" in m.__all__

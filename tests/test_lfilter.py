@@ -8,7 +8,7 @@ import scipy.signal as ss
 
 import jax.numpy as jnp
 
-from simpledsp_tpu.ops.lfilter import (
+from simpledsp_jax.ops.lfilter import (
     BlockLFilter, filtfilt, freqz, lfilter, lfilter_scan, lfilter_zi)
 
 
@@ -127,7 +127,7 @@ class TestResponseHelpers:
     """freqs / freqs_zpk / freqz_zpk / lfiltic vs scipy."""
 
     def test_freqs_matches_scipy(self):
-        from simpledsp_tpu.ops.lfilter import freqs
+        from simpledsp_jax.ops.lfilter import freqs
         bc, ac = ss.butter(4, 100.0, analog=True)
         w = np.logspace(0, 3, 50)
         w1, h1 = freqs(bc, ac, worN=w)
@@ -136,7 +136,7 @@ class TestResponseHelpers:
         np.testing.assert_allclose(h1, h2, atol=1e-12)
 
     def test_freqs_zpk_freqz_zpk_match_scipy(self):
-        from simpledsp_tpu.ops.lfilter import freqs_zpk, freqz_zpk
+        from simpledsp_jax.ops.lfilter import freqs_zpk, freqz_zpk
         z, p, k = ss.butter(4, 100.0, analog=True, output="zpk")
         w = np.logspace(0, 3, 50)
         _, h1 = freqs_zpk(z, p, k, w)
@@ -149,7 +149,7 @@ class TestResponseHelpers:
         np.testing.assert_allclose(h1, h2, atol=1e-12)
 
     def test_lfiltic_matches_scipy_and_continues_stream(self, rng):
-        from simpledsp_tpu.ops.lfilter import lfilter, lfiltic
+        from simpledsp_jax.ops.lfilter import lfilter, lfiltic
         b, a = ss.butter(4, 0.3)
         y_hist = rng.standard_normal(4)
         x_hist = rng.standard_normal(4)
@@ -167,7 +167,7 @@ class TestResponseHelpers:
 
 def test_freqs_positional_worN_and_freqz_zpk_array():
     """scipy calling conventions (review-fixed regression pin)."""
-    from simpledsp_tpu.ops.lfilter import freqs, freqz_zpk
+    from simpledsp_jax.ops.lfilter import freqs, freqz_zpk
     bc, ac = ss.butter(4, 100.0, analog=True)
     w = np.logspace(0, 3, 50)
     _, h1 = freqs(bc, ac, w)                  # positional array

@@ -1,8 +1,7 @@
 """Flagship-model tests: NorthStarChain (serial + sharded) on CPU.
 
-The TPU fused-kernel path is exercised by bench.py and the examples on real
-hardware; here the jnp path is validated against the scipy+numpy oracle and
-the sharded form against the serial one.
+The chain is validated against the scipy+numpy oracle and the sharded form
+against the serial one; chip_smoke.py repeats both checks on the GPU.
 """
 
 import jax
@@ -11,13 +10,13 @@ import numpy as np
 import pytest
 import scipy.signal as sig
 
-from simpledsp_tpu.design.biquad import sos_matrix
-from simpledsp_tpu.models.northstar import (
+from simpledsp_jax.design.biquad import sos_matrix
+from simpledsp_jax.models.northstar import (
     NorthStarChain,
     ShardedNorthStarChain,
     default_design,
 )
-from simpledsp_tpu.parallel import make_mesh
+from simpledsp_jax.parallel import make_mesh
 
 
 @pytest.fixture(scope="module")
@@ -39,7 +38,7 @@ def _oracle_spectra(design, x):
 
 class TestNorthStarChain:
     def test_matches_oracle_f64(self, rng):
-        chain = NorthStarChain(dtype=jnp.float64, use_pallas=False)
+        chain = NorthStarChain(dtype=jnp.float64)
         x = rng.standard_normal((2, 16384))
         (sr, si), state = chain(jnp.asarray(x))
         ref = _oracle_spectra(chain.design, x)
@@ -50,8 +49,8 @@ class TestNorthStarChain:
     def test_unpack_matches_numpy_rfft(self, rng):
         """unpack_rfft_ri on the chain output == numpy rfft of the
         filtered signal (the pure N/2+1 one-sided form)."""
-        from simpledsp_tpu.ops.fft import unpack_rfft_ri
-        chain = NorthStarChain(dtype=jnp.float64, use_pallas=False)
+        from simpledsp_jax.ops.fft import unpack_rfft_ri
+        chain = NorthStarChain(dtype=jnp.float64)
         x = rng.standard_normal((1, 8192))
         (sr, si), _ = chain(jnp.asarray(x))
         yr, yi = unpack_rfft_ri(sr, si)
@@ -63,7 +62,7 @@ class TestNorthStarChain:
         assert np.abs(got - ref).max() < 1e-9
 
     def test_streaming_state(self, rng):
-        chain = NorthStarChain(dtype=jnp.float64, use_pallas=False)
+        chain = NorthStarChain(dtype=jnp.float64)
         x = rng.standard_normal((1, 16384))
         (ar, ai), _ = chain(jnp.asarray(x))
         (br, bi), s = chain(jnp.asarray(x[:, :8192]))
@@ -73,40 +72,17 @@ class TestNorthStarChain:
             np.asarray(ar), atol=1e-10)
 
     def test_bad_length_raises(self):
-        chain = NorthStarChain(use_pallas=False)
+        chain = NorthStarChain()
         with pytest.raises(ValueError):
             chain(jnp.zeros((1, 5000)))
-
-    def test_fused_interpret_path_matches_jnp_path(self, rng):
-        """The fused kernel (interpret) and the jnp path agree."""
-        from simpledsp_tpu.kernels.chain import (
-            FusedNorthStarOperators, fused_chain_frames)
-        design = default_design()
-        plain = NorthStarChain(design=design, dtype=jnp.float64,
-                               use_pallas=False)
-        ops = FusedNorthStarOperators(design, 4096, dtype=jnp.float64)
-        x = rng.standard_normal((1, 8192))
-        (ar, ai), s_a = plain(jnp.asarray(x))
-        s0 = jnp.zeros((1, ops.state_dim), jnp.float64)
-        (br, bi), s_b = fused_chain_frames(ops, jnp.asarray(x), s0,
-                                           half_spectrum=True,
-                                           interpret=True)
-        np.testing.assert_allclose(np.asarray(br).reshape(1, -1, 2048),
-                                   np.asarray(ar), atol=1e-9)
-        np.testing.assert_allclose(np.asarray(bi).reshape(1, -1, 2048),
-                                   np.asarray(ai), atol=1e-9)
-        np.testing.assert_allclose(np.asarray(s_b),
-                                   np.asarray(s_a.y_hist).reshape(1, -1),
-                                   atol=1e-10)
 
 
 class TestShardedNorthStarChain:
     def test_matches_serial(self, mesh, rng):
         design = default_design()
-        serial = NorthStarChain(design=design, dtype=jnp.float64,
-                                use_pallas=False)
+        serial = NorthStarChain(design=design, dtype=jnp.float64)
         sharded = ShardedNorthStarChain(mesh, design=design,
-                                        dtype=jnp.float64, use_pallas=False)
+                                        dtype=jnp.float64)
         x = rng.standard_normal((2, 4 * 16384))
         (ar, ai), s_a = serial(jnp.asarray(x))
         (br, bi), s_b = sharded(jnp.asarray(x))
@@ -115,39 +91,7 @@ class TestShardedNorthStarChain:
                                    np.asarray(s_a.y_hist), atol=1e-10)
 
     def test_streaming_sharded(self, mesh, rng):
-        sharded = ShardedNorthStarChain(mesh, dtype=jnp.float64,
-                                        use_pallas=False)
-        x = rng.standard_normal((2, 8 * 16384))
-        (ar, _), _ = sharded(jnp.asarray(x))
-        (br, _), s = sharded(jnp.asarray(x[:, :4 * 16384]))
-        (cr, _), _ = sharded(jnp.asarray(x[:, 4 * 16384:]), s)
-        np.testing.assert_allclose(
-            np.concatenate([np.asarray(br), np.asarray(cr)], axis=1),
-            np.asarray(ar), atol=1e-10)
-
-
-class TestShardedFusedChain:
-    def test_sharded_fused_matches_serial(self, mesh, rng):
-        """The sequence-parallel FUSED kernel path (interpret mode on the
-        CPU mesh) matches the serial oracle chain."""
-        design = default_design()
-        serial = NorthStarChain(design=design, dtype=jnp.float64,
-                                use_pallas=False)
-        sharded = ShardedNorthStarChain(mesh, design=design,
-                                        dtype=jnp.float64, use_pallas=True)
-        assert sharded._fused_ops is not None
-        sharded._interpret = True
-        x = rng.standard_normal((2, 4 * 16384))
-        (ar, ai), s_a = serial(jnp.asarray(x))
-        (br, bi), s_b = sharded(jnp.asarray(x))
-        np.testing.assert_allclose(np.asarray(br), np.asarray(ar), atol=1e-9)
-        np.testing.assert_allclose(np.asarray(s_b.y_hist),
-                                   np.asarray(s_a.y_hist), atol=1e-10)
-
-    def test_sharded_fused_streaming(self, mesh, rng):
-        sharded = ShardedNorthStarChain(mesh, dtype=jnp.float64,
-                                        use_pallas=True)
-        sharded._interpret = True
+        sharded = ShardedNorthStarChain(mesh, dtype=jnp.float64)
         x = rng.standard_normal((2, 8 * 16384))
         (ar, _), _ = sharded(jnp.asarray(x))
         (br, _), s = sharded(jnp.asarray(x[:, :4 * 16384]))
@@ -162,7 +106,7 @@ class TestStreamingSoak:
         """200 chained blocks: state stays bounded, outputs finite, and a
         mid-stream block equals the same block from a fresh whole-run —
         the streaming contract under sustained use."""
-        chain = NorthStarChain(dtype=jnp.float64, use_pallas=False)
+        chain = NorthStarChain(dtype=jnp.float64)
         nblk, blk = 200, 4096
         x = rng.standard_normal((1, nblk * blk))
         state = None
@@ -178,24 +122,3 @@ class TestStreamingSoak:
         (ar, ai), _ = chain(jnp.asarray(x))
         np.testing.assert_allclose(outs[150][0][0, 0],
                                    np.asarray(ar)[0, 150], atol=1e-9)
-
-
-@pytest.mark.parametrize("nfft", [1024, 2048, 8192])
-def test_fused_chain_other_fft_sizes(rng, nfft):
-    """The fused packed half-spectrum path is not 4096-specific: any
-    n1*128 size factorizes onto the same kernel."""
-    from simpledsp_tpu.kernels.chain import (FusedNorthStarOperators,
-                                             fused_chain_frames)
-    design = default_design()
-    ops = FusedNorthStarOperators(design, fft_size=nfft, dtype=jnp.float64)
-    x = rng.standard_normal((2, nfft * 3))
-    s0 = jnp.zeros((2, ops.state_dim))
-    (zr, zi), _ = fused_chain_frames(ops, jnp.asarray(x), s0,
-                                     half_spectrum=True, interpret=True)
-    y = sig.sosfilt(sos_matrix(design), x, axis=-1)
-    full = np.fft.rfft(y.reshape(2, -1, nfft))
-    pr = full.real[..., :-1]
-    pi = np.concatenate([full.real[..., -1:], full.imag[..., 1:-1]], -1)
-    got = (np.asarray(zr).reshape(2, -1, nfft // 2)
-           + 1j * np.asarray(zi).reshape(2, -1, nfft // 2))
-    assert np.abs(got - (pr + 1j * pi)).max() < 1e-9

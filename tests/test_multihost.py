@@ -21,7 +21,7 @@ WORKER = textwrap.dedent("""
         print(line, flush=True)
         _results.write(line + chr(10))
         _results.flush()
-    from simpledsp_tpu.parallel import multihost
+    from simpledsp_jax.parallel import multihost
     multihost.initialize(coordinator="localhost:{port}",
                          num_processes=2, process_id=pid)
     import numpy as np, jax.numpy as jnp
@@ -32,16 +32,16 @@ WORKER = textwrap.dedent("""
     local = rng.standard_normal((1, 1024)).astype(np.float32)
     x = multihost.host_sharded(mesh, local)
     assert x.shape == (2, 1024)
-    from simpledsp_tpu.models.northstar import default_design
-    from simpledsp_tpu.parallel import ShardedBlockIIR
+    from simpledsp_jax.models.northstar import default_design
+    from simpledsp_jax.parallel import ShardedBlockIIR
     f = ShardedBlockIIR(default_design(), mesh, block_size=64)
     y, st = f(x)
     val = float(jnp.sum(jnp.abs(y)))
     report(f"OK proc {{pid}} checksum {{val:.6f}}")
 
     # Halo-exchange FIR across the process boundary (ppermute ring).
-    from simpledsp_tpu.design.fir import lowpass_taps
-    from simpledsp_tpu.parallel import ShardedFIR
+    from simpledsp_jax.design.fir import lowpass_taps
+    from simpledsp_jax.parallel import ShardedFIR
     fir = ShardedFIR(lowpass_taps(33, 0.25, fs=1.0), mesh)
     yf, _ = fir(x)
     val_fir = float(jnp.sum(jnp.abs(yf)))
@@ -49,16 +49,16 @@ WORKER = textwrap.dedent("""
 
     # Full sharded north-star chain across processes, validated against a
     # locally-computed SERIAL reference on the (deterministic) global input.
-    from simpledsp_tpu.models.northstar import NorthStarChain, ShardedNorthStarChain
+    from simpledsp_jax.models.northstar import NorthStarChain, ShardedNorthStarChain
     chain = ShardedNorthStarChain(mesh, fft_size=256, block_size=64,
-                                  dtype=jnp.float32, use_pallas=False)
+                                  dtype=jnp.float32)
     (sr, si), _ = chain(x)
     val_chain = float(jnp.sum(jnp.abs(sr)) + jnp.sum(jnp.abs(si)))
     ref_in = np.concatenate(
         [np.random.default_rng(p).standard_normal((1, 1024)).astype(np.float32)
          for p in range(2)], axis=0)
     serial = NorthStarChain(fft_size=256, block_size=64,
-                            dtype=jnp.float32, use_pallas=False)
+                            dtype=jnp.float32)
     (rr, ri), _ = serial(jnp.asarray(ref_in))
     val_serial = float(jnp.sum(jnp.abs(rr)) + jnp.sum(jnp.abs(ri)))
     rel = abs(val_chain - val_serial) / max(abs(val_serial), 1e-9)
@@ -68,8 +68,8 @@ WORKER = textwrap.dedent("""
     # Round-4 sharded ops across the process boundary: centered
     # convolution (left halo + centering ppermute) and STFT (right-
     # neighbor look-ahead halo), both vs in-worker serial references.
-    from simpledsp_tpu.ops.conv import convolve
-    from simpledsp_tpu.parallel import ShardedConvolve, ShardedSTFT
+    from simpledsp_jax.ops.conv import convolve
+    from simpledsp_jax.parallel import ShardedConvolve, ShardedSTFT
     h33 = lowpass_taps(33, 0.2, fs=1.0)
     yc = ShardedConvolve(h33, mesh, dtype=jnp.float32)(x)
     ref_c = convolve(jnp.asarray(ref_in), h33, mode="same")
@@ -79,7 +79,7 @@ WORKER = textwrap.dedent("""
     report(f"OKCONV proc {{pid}} checksum "
            f"{{float(jnp.sum(jnp.abs(yc))):.6f}}")
 
-    from simpledsp_tpu.ops.spectral import stft_ri
+    from simpledsp_jax.ops.spectral import stft_ri
     st = ShardedSTFT(mesh, nfft=128, hop=64, dtype=jnp.float32)
     gr, gi = st(x)
     rr_s, ri_s = stft_ri(jnp.asarray(ref_in).astype(jnp.float32), 128,

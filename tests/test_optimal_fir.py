@@ -9,7 +9,7 @@ import numpy as np
 import pytest
 import scipy.signal as sig
 
-from simpledsp_tpu.design.optimal_fir import firls, minimum_phase, remez
+from simpledsp_jax.design.optimal_fir import firls, minimum_phase, remez
 
 
 def _ripple_db(h, bands_pass, bands_stop, n=8192):

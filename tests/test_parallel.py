@@ -12,12 +12,12 @@ import numpy as np
 import pytest
 import scipy.signal as sig
 
-from simpledsp_tpu.design.biquad import design_bandpass, design_lowpass
-from simpledsp_tpu.design.fir import lowpass_taps
-from simpledsp_tpu.ops.channelizer import PFBChannelizer
-from simpledsp_tpu.ops.fir import PolyphaseResampler
-from simpledsp_tpu.ops.iir import coeffs_from_design, iir_init, sosfilt_scan
-from simpledsp_tpu.parallel import (
+from simpledsp_jax.design.biquad import design_bandpass, design_lowpass
+from simpledsp_jax.design.fir import lowpass_taps
+from simpledsp_jax.ops.channelizer import PFBChannelizer
+from simpledsp_jax.ops.fir import PolyphaseResampler
+from simpledsp_jax.ops.iir import coeffs_from_design, iir_init, sosfilt_scan
+from simpledsp_jax.parallel import (
     ShardedBlockIIR,
     ShardedChannelizer,
     ShardedFIR,
@@ -52,7 +52,7 @@ class TestShardedIIR:
                                    atol=1e-11)
 
     def test_matches_scipy_sosfilt(self, mesh18, rng):
-        from simpledsp_tpu.design.biquad import sos_matrix
+        from simpledsp_jax.design.biquad import sos_matrix
         design = design_bandpass(4, 2000.0, 39000.0, 0.8)
         x = rng.standard_normal((2, 2048))
         f = ShardedBlockIIR(design, mesh18, block_size=64, dtype=jnp.float64)
@@ -97,7 +97,7 @@ class TestShardedFIR:
         np.testing.assert_allclose(np.asarray(y), y_ref, atol=1e-12)
 
     def test_resampler_matches_upfirdn(self, mesh18, rng):
-        from simpledsp_tpu.design.fir import resampler_taps
+        from simpledsp_jax.design.fir import resampler_taps
         up, down = 3, 2
         taps = resampler_taps(up, down, taps_per_phase=8)
         x = rng.standard_normal((2, 1600))
@@ -151,7 +151,7 @@ class TestShardedChannelizer:
 
 class TestShardedOverlapSave:
     def test_matches_serial_lfilter(self, mesh18, rng):
-        from simpledsp_tpu.parallel import ShardedOverlapSaveFIR
+        from simpledsp_jax.parallel import ShardedOverlapSaveFIR
         taps = lowpass_taps(129, 0.1, fs=1.0)
         x = rng.standard_normal((2, 4096))
         f = ShardedOverlapSaveFIR(taps, mesh18, block_size=256,
@@ -161,7 +161,7 @@ class TestShardedOverlapSave:
         np.testing.assert_allclose(np.asarray(y), y_ref, atol=1e-10)
 
     def test_streaming_across_calls(self, mesh18, rng):
-        from simpledsp_tpu.parallel import ShardedOverlapSaveFIR
+        from simpledsp_jax.parallel import ShardedOverlapSaveFIR
         taps = lowpass_taps(65, 0.2, fs=1.0)
         x = rng.standard_normal((1, 8192))
         f = ShardedOverlapSaveFIR(taps, mesh18, block_size=256,
@@ -192,18 +192,14 @@ class TestChannelizerGather:
 
 
 class TestShardedReceiverBank:
-    """dp-sharded SDR banks == the serial banks stream for stream, on both
-    the XLA and the fused (interpret) kernel paths, streaming across
-    calls."""
+    """dp-sharded SDR banks == the serial banks stream for stream,
+    streaming across calls."""
 
-    @pytest.mark.parametrize("use_pallas", [False, True])
-    def test_fm_bank_sharded_equals_serial(self, mesh24, rng, use_pallas):
-        from simpledsp_tpu.models.sdr import FMReceiverBank
-        from simpledsp_tpu.parallel import ShardedReceiverBank
+    def test_fm_bank_sharded_equals_serial(self, mesh24, rng):
+        from simpledsp_jax.models.sdr import FMReceiverBank
+        from simpledsp_jax.parallel import ShardedReceiverBank
 
-        bank = FMReceiverBank(16, fs=1.6e6, dtype=jnp.float64,
-                              use_pallas=use_pallas)
-        bank._interpret = use_pallas
+        bank = FMReceiverBank(16, fs=1.6e6, dtype=jnp.float64)
         sharded = ShardedReceiverBank(bank, mesh24)
         x = (rng.standard_normal((4, 16 * 256))
              + 1j * rng.standard_normal((4, 16 * 256)))
@@ -220,28 +216,28 @@ class TestShardedReceiverBank:
                                    np.asarray(sp.demod.prev_r), atol=1e-12)
 
     def test_am_bank_dc_sharded_equals_serial(self, mesh24, rng):
-        from simpledsp_tpu.models.sdr import AMReceiverBank
-        from simpledsp_tpu.parallel import ShardedReceiverBank
+        from simpledsp_jax.models.sdr import AMReceiverBank
+        from simpledsp_jax.parallel import ShardedReceiverBank
 
-        bank = AMReceiverBank(16, fs=1.6e6, dtype=jnp.float64,
-                              use_pallas=True)
-        bank._interpret = True
+        bank = AMReceiverBank(16, fs=1.6e6, dtype=jnp.float64)
         sharded = ShardedReceiverBank(bank, mesh24)
         x = (rng.standard_normal((4, 16 * 256))
              + 1j * rng.standard_normal((4, 16 * 256)))
-        a_s, ss = sharded(x)
-        a_p, sp = bank(x)
-        np.testing.assert_allclose(np.asarray(a_s), np.asarray(a_p),
-                                   atol=1e-12)
-        np.testing.assert_allclose(np.asarray(ss.dc), np.asarray(sp.dc),
-                                   atol=1e-12)
+        ss = sharded.init_state(4)
+        sp = bank.init_state(4)
+        for _ in range(2):   # per-call DC removal, streaming across calls
+            a_s, ss = sharded(x, ss)
+            a_p, sp = bank(x, sp)
+            np.testing.assert_allclose(np.asarray(a_s), np.asarray(a_p),
+                                       atol=1e-12)
+        np.testing.assert_allclose(np.asarray(ss.audio.hist),
+                                   np.asarray(sp.audio.hist), atol=1e-12)
 
     def test_batch_not_divisible_raises(self, mesh24):
-        from simpledsp_tpu.models.sdr import FMReceiverBank
-        from simpledsp_tpu.parallel import ShardedReceiverBank
+        from simpledsp_jax.models.sdr import FMReceiverBank
+        from simpledsp_jax.parallel import ShardedReceiverBank
 
-        bank = FMReceiverBank(16, fs=1.6e6, dtype=jnp.float64,
-                              use_pallas=False)
+        bank = FMReceiverBank(16, fs=1.6e6, dtype=jnp.float64)
         sharded = ShardedReceiverBank(bank, mesh24)
         with pytest.raises(ValueError):
             sharded(jnp.zeros((3, 16 * 64), jnp.float64))
@@ -249,8 +245,8 @@ class TestShardedReceiverBank:
 
 class TestShardedConvolve:
     def test_same_mode_matches_serial(self, mesh24, rng):
-        from simpledsp_tpu.ops.conv import convolve
-        from simpledsp_tpu.parallel.fir import ShardedConvolve
+        from simpledsp_jax.ops.conv import convolve
+        from simpledsp_jax.parallel.fir import ShardedConvolve
         h = lowpass_taps(301, 0.1, fs=1.0)
         x = rng.standard_normal((4, 8192))
         sc = ShardedConvolve(h, mesh24, dtype=jnp.float64)
@@ -259,8 +255,8 @@ class TestShardedConvolve:
         np.testing.assert_allclose(got, ref, atol=1e-12)
 
     def test_even_taps_and_sp8(self, mesh18, rng):
-        from simpledsp_tpu.ops.conv import convolve
-        from simpledsp_tpu.parallel.fir import ShardedConvolve
+        from simpledsp_jax.ops.conv import convolve
+        from simpledsp_jax.parallel.fir import ShardedConvolve
         h = rng.standard_normal(64)
         x = rng.standard_normal((2, 4096))
         sc = ShardedConvolve(h, mesh18, dtype=jnp.float64)
@@ -269,7 +265,7 @@ class TestShardedConvolve:
         np.testing.assert_allclose(got, ref, atol=1e-12)
 
     def test_scipy_oracle(self, mesh18, rng):
-        from simpledsp_tpu.parallel.fir import ShardedConvolve
+        from simpledsp_jax.parallel.fir import ShardedConvolve
         h = rng.standard_normal(33)
         x = rng.standard_normal((1, 2048))
         sc = ShardedConvolve(h, mesh18, dtype=jnp.float64)
@@ -278,7 +274,7 @@ class TestShardedConvolve:
         np.testing.assert_allclose(got, ref, atol=1e-10)
 
     def test_short_shard_raises(self, mesh18):
-        from simpledsp_tpu.parallel.fir import ShardedConvolve
+        from simpledsp_jax.parallel.fir import ShardedConvolve
         sc = ShardedConvolve(np.ones(301), mesh18, dtype=jnp.float64)
         with pytest.raises(ValueError, match="halo"):
             sc(jnp.zeros((1, 8 * 128)))
@@ -287,8 +283,8 @@ class TestShardedConvolve:
 class TestShardedSTFT:
     @pytest.mark.parametrize("hop_div", [1, 2, 4])
     def test_matches_serial(self, mesh24, rng, hop_div):
-        from simpledsp_tpu.ops.spectral import stft_ri
-        from simpledsp_tpu.parallel.spectral import ShardedSTFT
+        from simpledsp_jax.ops.spectral import stft_ri
+        from simpledsp_jax.parallel.spectral import ShardedSTFT
         nfft = 256
         hop = nfft // hop_div
         x = rng.standard_normal((4, 8192))
@@ -301,8 +297,8 @@ class TestShardedSTFT:
                                    atol=1e-12)
 
     def test_sp8_onesided_false(self, mesh18, rng):
-        from simpledsp_tpu.ops.spectral import stft_ri
-        from simpledsp_tpu.parallel.spectral import ShardedSTFT
+        from simpledsp_jax.ops.spectral import stft_ri
+        from simpledsp_jax.parallel.spectral import ShardedSTFT
         x = rng.standard_normal((2, 8 * 512))
         st = ShardedSTFT(mesh18, nfft=128, hop=64, onesided=False,
                          dtype=jnp.float64)
@@ -314,15 +310,15 @@ class TestShardedSTFT:
                                    atol=1e-12)
 
     def test_bad_hop_raises(self, mesh18):
-        from simpledsp_tpu.parallel.spectral import ShardedSTFT
+        from simpledsp_jax.parallel.spectral import ShardedSTFT
         with pytest.raises(ValueError, match="hop"):
             ShardedSTFT(mesh18, nfft=256, hop=96)
 
     def test_padded_keeps_frames_sharded(self, mesh18, rng):
         """padded=True returns uniform T//hop frames (no gather-forcing
-        trailing slice; the composed-jit form — tools/collective_budget);
+        trailing slice; the composed-jit form);
         the valid prefix equals the unpadded result."""
-        from simpledsp_tpu.parallel.spectral import ShardedSTFT
+        from simpledsp_jax.parallel.spectral import ShardedSTFT
         x = rng.standard_normal((2, 8 * 512))
         st = ShardedSTFT(mesh18, nfft=128, hop=64, dtype=jnp.float64)
         pr, pi = st(jnp.asarray(x), padded=True)

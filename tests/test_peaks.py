@@ -4,7 +4,7 @@ import numpy as np
 import pytest
 import scipy.signal as ss
 
-from simpledsp_tpu.ops import peaks as pk
+from simpledsp_jax.ops import peaks as pk
 
 
 @pytest.fixture

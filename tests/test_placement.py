@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import scipy.signal as ss
 
-from simpledsp_tpu.design.placement import place_poles
+from simpledsp_jax.design.placement import place_poles
 
 A_DOC = np.array([[1.380, -0.2077, 6.715, -5.676],
                   [-0.5814, -4.290, 0, 0.6750],

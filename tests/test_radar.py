@@ -6,7 +6,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from simpledsp_tpu.models.radar import (cfar_ca, lfm_chirp,
+from simpledsp_jax.models.radar import (cfar_ca, lfm_chirp,
                                         matched_filter_ri,
                                         range_doppler_map)
 

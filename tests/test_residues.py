@@ -4,7 +4,7 @@ import numpy as np
 import pytest
 import scipy.signal as ss
 
-from simpledsp_tpu.design import residues as rz
+from simpledsp_jax.design import residues as rz
 
 
 def _cmp_sets(r1, p1, r2, p2, atol=1e-8):

@@ -1,6 +1,6 @@
 """Native streaming-runtime tests (ring buffer, converters, file source).
 
-These run on the host only (no TPU); they validate the C++ library through
+These run on the host only (no accelerator); they validate the C++ library through
 its public ctypes bindings, including a threaded producer/consumer and an
 end-to-end file -> ring -> RI planes -> FM receiver flow.
 """
@@ -12,7 +12,7 @@ import pytest
 
 pytest.importorskip("ctypes")
 
-from simpledsp_tpu.runtime import (
+from simpledsp_jax.runtime import (
     FileSink,
     FileSource,
     RingBuffer,
@@ -124,7 +124,7 @@ class TestFileSource:
     def test_end_to_end_iq_file_to_fm_receiver(self, tmp_path):
         """File of int16 IQ -> native ring -> RI planes -> FM receiver."""
         import jax.numpy as jnp
-        from simpledsp_tpu.models.sdr import FMReceiverBank
+        from simpledsp_jax.models.sdr import FMReceiverBank
 
         fs, m, decim = 256e3, 8, 2
         T = 8192

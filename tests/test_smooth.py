@@ -6,7 +6,7 @@ import scipy.signal as sig
 
 import jax.numpy as jnp
 
-from simpledsp_tpu.ops.smooth import (detrend, medfilt, medfilt2d,
+from simpledsp_jax.ops.smooth import (detrend, medfilt, medfilt2d,
                                       order_filter, savgol_coeffs,
                                       savgol_filter, wiener)
 

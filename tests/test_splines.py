@@ -6,7 +6,7 @@ import scipy.signal as ss
 
 import jax.numpy as jnp
 
-from simpledsp_tpu.ops import splines as sp
+from simpledsp_jax.ops import splines as sp
 
 
 def test_spline_coefficients_match_scipy(rng):

@@ -4,7 +4,7 @@ import numpy as np
 import pytest
 import scipy.signal as ss
 
-from simpledsp_tpu.design.systems import (StateSpace, TransferFunction,
+from simpledsp_jax.design.systems import (StateSpace, TransferFunction,
                                           ZerosPolesGain, dlti, lti)
 
 

@@ -14,9 +14,9 @@ import scipy.signal as ss
 
 import jax.numpy as jnp
 
-from simpledsp_tpu.ops.conv import convolve, correlate
-from simpledsp_tpu.ops.fft import fft, ifft
-from simpledsp_tpu.ops.transforms import (
+from simpledsp_jax.ops.conv import convolve, correlate
+from simpledsp_jax.ops.fft import fft, ifft
+from simpledsp_jax.ops.transforms import (
     analytic_ri, czt, dct, goertzel, goertzel_ri, hilbert, idct, zoom_fft)
 
 EPS = np.finfo(np.float64).eps
@@ -222,7 +222,7 @@ def test_convolve_rejects_bad_args(rng):
 # STFT / ISTFT
 # ---------------------------------------------------------------------------
 
-from simpledsp_tpu.ops.spectral import istft_ri, stft_ri  # noqa: E402
+from simpledsp_jax.ops.spectral import istft_ri, stft_ri  # noqa: E402
 
 
 def test_stft_istft_round_trip_hann(rng):
@@ -306,8 +306,8 @@ def test_convolve_long_signal_ols_route(rng):
 # deconvolve / correlation_lags / lombscargle (round-4 breadth)
 # ---------------------------------------------------------------------------
 
-from simpledsp_tpu.ops.conv import correlation_lags, deconvolve  # noqa: E402
-from simpledsp_tpu.ops.spectral import lombscargle  # noqa: E402
+from simpledsp_jax.ops.conv import correlation_lags, deconvolve  # noqa: E402
+from simpledsp_jax.ops.spectral import lombscargle  # noqa: E402
 
 
 def test_deconvolve_matches_scipy(rng):
@@ -358,7 +358,7 @@ def test_lombscargle_matches_scipy(rng):
 def test_hilbert2_matches_scipy(rng):
     """2-D single-orthant analytic signal (even/odd sizes + batch; the
     even-N Nyquist bin is ZEROED per scipy's convention)."""
-    from simpledsp_tpu.ops.transforms import hilbert2
+    from simpledsp_jax.ops.transforms import hilbert2
     for shape in [(32, 48), (33, 47), (8, 8)]:
         x = rng.standard_normal(shape)
         got = np.asarray(hilbert2(jnp.asarray(x)))
@@ -375,7 +375,7 @@ def test_hilbert2_matches_scipy(rng):
 
 
 def test_czt_points_matches_scipy():
-    from simpledsp_tpu.ops.transforms import czt_points
+    from simpledsp_jax.ops.transforms import czt_points
     w = 0.9 * np.exp(-1j * 0.3)
     np.testing.assert_allclose(czt_points(7, w, 1.1),
                                ss.czt_points(7, w, 1.1), atol=1e-14)
@@ -385,7 +385,7 @@ def test_czt_points_matches_scipy():
 
 
 def test_check_cola_nola_match_scipy():
-    from simpledsp_tpu.ops.spectral import check_COLA, check_NOLA
+    from simpledsp_jax.ops.spectral import check_COLA, check_NOLA
     cases = [("hann", 256, 128), ("hann", 256, 192), ("hann", 256, 100),
              ("boxcar", 100, 0), ("hamming", 256, 128),
              (("kaiser", 8.0), 128, 64)]
@@ -399,7 +399,7 @@ def test_check_cola_nola_match_scipy():
 
 
 def test_vectorstrength_matches_scipy(rng):
-    from simpledsp_tpu.ops.spectral import vectorstrength
+    from simpledsp_jax.ops.spectral import vectorstrength
     ev = rng.uniform(0, 100, 200)
     s1, p1 = vectorstrength(ev, 7.0)
     s2, p2 = ss.vectorstrength(ev, 7.0)
@@ -416,7 +416,7 @@ def test_vectorstrength_matches_scipy(rng):
 
 
 def test_envelope_matches_scipy(rng):
-    from simpledsp_tpu.ops.spectral import envelope
+    from simpledsp_jax.ops.spectral import envelope
     z = rng.standard_normal(64)
     for bp in ((1, None), (4, 20), (-10, 12), (None, 16)):
         for kw in (dict(), dict(residual="all"), dict(residual=None),
@@ -457,7 +457,7 @@ def test_stft_dual_windows_match_scipy(rng):
     real and complex windows, scaled and unscaled."""
     from scipy.signal import ShortTimeFFT
     from scipy.signal.windows import gaussian, hann
-    from simpledsp_tpu.ops.spectral import (closest_STFT_dual_window,
+    from simpledsp_jax.ops.spectral import (closest_STFT_dual_window,
                                             stft_dual_window)
     for win, hop in [(hann(64), 16), (gaussian(50, 10), 13),
                      (rng.standard_normal(32) + 1.5, 8),
@@ -491,7 +491,7 @@ def test_envelope_complex_matches_scipy(rng):
     """Complex input (scipy's full-spectrum branch, round 5): no
     analytic doubling; residual via the frequency-domain-resample
     Nyquist split/join corrections."""
-    from simpledsp_tpu.ops.spectral import envelope, envelope_ri
+    from simpledsp_jax.ops.spectral import envelope, envelope_ri
     z = rng.standard_normal(64) + 1j * rng.standard_normal(64)
     for bp in ((1, None), (4, 20), (-10, 12), (None, 16), (-20, -5)):
         for res in ("all", "lowpass", None):
@@ -518,7 +518,7 @@ def test_envelope_complex_matches_scipy(rng):
     np.testing.assert_allclose(
         np.asarray(envelope(jnp.asarray(z2), (1, None), axis=0)),
         np.asarray(ss.envelope(z2, (1, None), axis=0)), atol=1e-12)
-    # RI-plane wrapper (the TPU carrier): env real, residual as planes
+    # RI-plane wrapper (the framework's carrier): env real, residual as planes
     env, (rr, ri_) = envelope_ri(jnp.asarray(z.real), jnp.asarray(z.imag),
                                  (4, 20), n_out=32)
     ref = np.asarray(ss.envelope(z, (4, 20), n_out=32))
@@ -537,7 +537,7 @@ def test_envelope_residual_with_resampling(rng):
     """residual= combined with n_out= (advisor round-4 finding): the bin
     landing at the new Nyquist when cropping is genuinely complex; scipy's
     irfft keeps only its real part — outputs must still match scipy."""
-    from simpledsp_tpu.ops.spectral import envelope
+    from simpledsp_jax.ops.spectral import envelope
     z = rng.standard_normal(64)
     for bp in ((1, None), (4, 20), (None, 16), (-10, 12)):
         for res in ("all", "lowpass"):
@@ -552,7 +552,7 @@ def test_envelope_residual_with_resampling(rng):
 
 def test_czt_zoomfft_plan_classes(rng):
     """Callable CZT/ZoomFFT plans (round 5) vs scipy's classes."""
-    from simpledsp_tpu.ops.transforms import CZT, ZoomFFT
+    from simpledsp_jax.ops.transforms import CZT, ZoomFFT
     x = rng.standard_normal(64) + 1j * rng.standard_normal(64)
     for kw in (dict(), dict(m=33),
                dict(m=20, w=np.exp(-2j * np.pi / 21) * 1.001,
@@ -583,7 +583,7 @@ def test_choose_conv_method_surface():
     """scipy API shape; the answer is the framework's own ON-DEVICE
     crossover (min length > 96 -> the matmul-FFT engine), documented as
     such — not scipy's CPU heuristic."""
-    from simpledsp_tpu.ops.conv import choose_conv_method
+    from simpledsp_jax.ops.conv import choose_conv_method
     assert choose_conv_method(np.ones(50), np.ones(20)) == "direct"
     assert choose_conv_method(np.ones(4000), np.ones(300)) == "fft"
     method, times = choose_conv_method(np.ones(512), np.ones(128),

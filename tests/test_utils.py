@@ -5,21 +5,21 @@ import numpy as np
 import pytest
 import scipy.signal as sig
 
-from simpledsp_tpu.design.biquad import (
+from simpledsp_jax.design.biquad import (
     FilterType,
     bp_cutoff_freqs,
     design_bandpass,
     sos_matrix,
 )
-from simpledsp_tpu.utils.checkpoint import load_state, save_state
-from simpledsp_tpu.utils.fixtures import (
+from simpledsp_jax.utils.checkpoint import load_state, save_state
+from simpledsp_jax.utils.fixtures import (
     REFERENCE_CASES,
     REFERENCE_FS,
     generate_golden_fixtures,
     read_fixture,
     write_fixture,
 )
-from simpledsp_tpu.utils.intmath import (
+from simpledsp_jax.utils.intmath import (
     ilog2,
     ilog4,
     is_power_of_2,
@@ -63,7 +63,7 @@ class TestBPCutoff:
 
 class TestFixtures:
     def test_roundtrip(self, tmp_path, rng):
-        from simpledsp_tpu.utils.fixtures import ImpulseFixture
+        from simpledsp_jax.utils.fixtures import ImpulseFixture
         fx = ImpulseFixture(FilterType.low_pass, 39000.0, 200.0, 1.4,
                             rng.standard_normal(100))
         p = tmp_path / "LPimpulse.csv"
@@ -81,7 +81,7 @@ class TestFixtures:
     def test_golden_fixtures_validate_our_designs(self, tmp_path):
         """The regenerated fixtures must match our closed-form designs to
         the reference's 1e-12 gate (reference: testIIR.cpp:59) for LP/HP."""
-        from simpledsp_tpu.design.biquad import design_highpass, design_lowpass
+        from simpledsp_jax.design.biquad import design_highpass, design_lowpass
         generate_golden_fixtures(tmp_path)
         for name, designer in [("LPimpulse", design_lowpass),
                                ("HPimpulse", design_highpass)]:
@@ -97,7 +97,7 @@ class TestFixtures:
 
 class TestCheckpoint:
     def test_iir_state_roundtrip(self, tmp_path, rng):
-        from simpledsp_tpu.ops.iir import IIRState, iir_init
+        from simpledsp_jax.ops.iir import IIRState, iir_init
         state = IIRState(jnp.asarray(rng.standard_normal((3, 5, 2))))
         p = tmp_path / "state.npz"
         save_state(p, state)
@@ -108,8 +108,8 @@ class TestCheckpoint:
     def test_resume_equals_continuous(self, tmp_path, rng):
         """Checkpoint mid-stream, restore, continue: identical output —
         the reference's streaming contract through a file."""
-        from simpledsp_tpu.design.biquad import design_lowpass
-        from simpledsp_tpu.ops.iir import (
+        from simpledsp_jax.design.biquad import design_lowpass
+        from simpledsp_jax.ops.iir import (
             coeffs_from_design, iir_init, sosfilt_scan)
         design = design_lowpass(4, 1000.0, 39000.0)
         coeffs = coeffs_from_design(design, dtype=jnp.float64)
@@ -125,7 +125,7 @@ class TestCheckpoint:
             np.asarray(jnp.concatenate([y1, y2])), np.asarray(y_all))
 
     def test_sdr_state_roundtrip(self, tmp_path):
-        from simpledsp_tpu.models.sdr import FMReceiverBank
+        from simpledsp_jax.models.sdr import FMReceiverBank
         rx = FMReceiverBank(8, 256e3, decim=2)
         st = rx.init_state(2)
         p = tmp_path / "sdr.npz"
@@ -135,7 +135,7 @@ class TestCheckpoint:
                                    np.asarray(st.demod.prev_r))
 
     def test_leaf_count_mismatch_raises(self, tmp_path):
-        from simpledsp_tpu.ops.iir import iir_init
+        from simpledsp_jax.ops.iir import iir_init
         save_state(tmp_path / "s.npz", iir_init(4, ()))
         with pytest.raises(ValueError):
             load_state(tmp_path / "s.npz", (iir_init(4, ()), iir_init(4, ())))
@@ -143,8 +143,8 @@ class TestCheckpoint:
 
 class TestDebug:
     def test_assert_stable_accepts_good_design(self):
-        from simpledsp_tpu.design.biquad import design_lowpass
-        from simpledsp_tpu.utils.debug import assert_stable, pole_radii
+        from simpledsp_jax.design.biquad import design_lowpass
+        from simpledsp_jax.utils.debug import assert_stable, pole_radii
         d = design_lowpass(4, 2000.0, 39000.0)
         assert_stable(d)
         assert (pole_radii(d) < 1.0).all()
@@ -152,7 +152,7 @@ class TestDebug:
     def test_checked_catches_nan(self):
         import jax.numpy as jnp
         from jax.experimental import checkify
-        from simpledsp_tpu.utils.debug import checked
+        from simpledsp_jax.utils.debug import checked
 
         def bad(x):
             return jnp.log(x)  # NaN for negative input

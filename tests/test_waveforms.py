@@ -6,7 +6,7 @@ import scipy.signal as sig
 
 import jax.numpy as jnp
 
-from simpledsp_tpu.ops.waveforms import (chirp, gausspulse, max_len_seq,
+from simpledsp_jax.ops.waveforms import (chirp, gausspulse, max_len_seq,
                                          sawtooth, square, sweep_poly,
                                          unit_impulse)
 

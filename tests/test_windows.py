@@ -1,14 +1,14 @@
 """Window library vs scipy.signal oracle.
 
 The framework implements every window from its closed form
-(simpledsp_tpu/design/windows.py); scipy is the f64 validation oracle only.
+(simpledsp_jax/design/windows.py); scipy is the f64 validation oracle only.
 """
 
 import numpy as np
 import pytest
 import scipy.signal as sig
 
-from simpledsp_tpu.design import windows as W
+from simpledsp_jax.design import windows as W
 
 NO_ARG = ["boxcar", "triang", "bartlett", "barthann", "hann", "hamming",
           "blackman", "blackmanharris", "nuttall", "flattop", "bohman",
@@ -91,7 +91,7 @@ def test_dpss_concentration():
 
 
 def test_kaiser_atten_matches_scipy():
-    from simpledsp_tpu.design.windows import kaiser_atten
+    from simpledsp_jax.design.windows import kaiser_atten
     for taps, width in [(101, 0.05), (64, 0.1), (13, 0.3)]:
         assert abs(kaiser_atten(taps, width)
                    - sig.kaiser_atten(taps, width)) < 1e-12

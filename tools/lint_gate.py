@@ -20,9 +20,9 @@ import pathlib
 import sys
 
 MAX_LINE = 99
-DEFAULT_PATHS = ["simpledsp_tpu", "tests", "tools", "examples",
+DEFAULT_PATHS = ["simpledsp_jax", "tests", "tools", "examples",
                  "bench.py", "bench_ops.py", "bench_scaling.py",
-                 "__graft_entry__.py", "cli_entry.py"]
+                 "bench_stream.py", "chip_smoke.py", "__graft_entry__.py"]
 
 # Names that count as "used" even when only referenced in strings/comments
 # (re-export indexes keep imports solely for __all__ / package surface).
